@@ -1,10 +1,10 @@
-"""metamdbg_tpu — a TPU-native minimizer-space de Bruijn graph (MDBG) assembler.
+"""metamdbg_tpu — a minimizer-space de Bruijn graph (MDBG) assembler in JAX.
 
 A from-scratch re-design of the metaMDBG method (minimizer-space assembly of
-accurate long reads, optimized for metagenomes) for TPU hardware:
+accurate long reads, optimized for metagenomes) for an accelerator:
 
-- sketching, k-min-mer counting and graph construction are expressed as batched
-  array programs (JAX/XLA) with Pallas kernels for the hot inner loops,
+- sketching, k-min-mer counting and anchor chaining are expressed as batched
+  array programs (JAX/XLA), each with a bit-identical host twin,
 - multi-chip scale-out uses `jax.sharding` meshes with XLA collectives
   (all_to_all routing of hash-sharded count tables),
 - the host runtime (fastq IO, record files, orchestration) is Python + C++.
@@ -13,7 +13,7 @@ Layout:
     utils/      bit-exact hashing, u64-as-u32-pair device math, stats
     io/         on-disk record formats (read_data, kminmerData, unitigGraph...)
     sketch/     read selection: RLE, rolling canonical k-mers, minimizers
-    kernels/    Pallas TPU kernels
+    kernels/    device kernels (XLA): sketch, row counting, chain DP
     count/      sharded k-min-mer counting, rescue, refined abundances
     graph/      MDBG edges, unitig compaction, simplification, contigs
     correction/ ONT read correction (minimizer-space mapping + POA)

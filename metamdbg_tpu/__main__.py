@@ -80,16 +80,6 @@ def main(argv=None):
                  skip_correction=args.skip_correction,
                  all_assembly_graph=args.all_assembly_graph,
                  n_threads=args.threads).run()
-        from metamdbg_tpu.utils import devwarm
-        if devwarm.claim_pending() or devwarm.shadows_pending():
-            # the background device claim blocks inside the PJRT client and
-            # cannot be joined; interpreter teardown would abort in the
-            # native wait ("FATAL: exception not rethrown"). All outputs
-            # are flushed — exit the process directly.
-            logging.shutdown()
-            sys.stdout.flush()
-            sys.stderr.flush()
-            os._exit(0)
     elif args.command == "gfa":
         from metamdbg_tpu.pipeline.gfa import run_gfa
         run_gfa(args.out_dir, args.k, args.output,

@@ -13,6 +13,8 @@ import threading
 
 import numpy as np
 
+from ..utils.forkmap import native_threads
+
 log = logging.getLogger("metamdbg_tpu")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
@@ -217,8 +219,7 @@ def map_sketched_batch(index, queries, density, min_span, max_occ, band,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     nq = len(queries)
     if nq == 0:
         return []

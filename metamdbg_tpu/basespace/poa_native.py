@@ -13,6 +13,8 @@ import subprocess
 
 import numpy as np
 
+from ..utils.forkmap import native_threads
+
 log = logging.getLogger("metamdbg_tpu")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
@@ -76,8 +78,7 @@ def polish_windows(windows, n_threads: int | None = None):
         raise RuntimeError(
             "native POA engine unavailable (g++ build failed); "
             "the polisher requires native/libpoa.so")
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
 
     n = len(windows)
     backbones = b"".join(w[0] for w in windows)

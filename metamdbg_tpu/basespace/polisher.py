@@ -12,18 +12,13 @@ window at 100 fragments with the reference's eviction rules
 native/poa.cpp) with coverage trim (hpp:2458-2724), and re-assemble +
 validate contigs (hpp:2744-2868).
 
-Device/host decision (measured, r3): window POA is the committed HOST
-stage of this framework. POA alignment is a DP over a partial-order
+Window POA is a host stage. POA alignment is a DP over a partial-order
 graph whose topology changes after every fragment (AddAlignment), i.e.
 data-dependent shapes and a strictly sequential per-window dependency
-chain -- the opposite of what XLA/Pallas tile well. A batched device
-formulation (banded pileup voting, r1/r2 kernels/consensus_jax.py) ran
-but was (a) not spoa-equivalent (different consensus on indel-dense
-windows) and (b) dispatch-bound at the real window mix (500 bp x <=100
-fragments: sub-ms of VPU work per dispatch). The SIMD host engine does
-1.8 ms/window on 2 cores (was 4.9 ms scalar) and threads linearly; the
-TPU stays busy with the sketch/count/chain kernels that ARE batched and
-regular. The orphaned device voting kernels were removed with this note.
+chain -- the opposite of what XLA tiles well. An earlier batched device
+formulation (banded pileup voting) was not spoa-equivalent (different
+consensus on indel-dense windows) and was removed; the SIMD host engine
+threads across windows.
 """
 
 import logging

@@ -13,6 +13,8 @@ import subprocess
 
 import numpy as np
 
+from ..utils.forkmap import native_threads
+
 log = logging.getLogger("metamdbg_tpu")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
@@ -73,8 +75,7 @@ def window_cut_batch(items, contigs, window_len: int, align_l: int,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     n = len(items)
     if n == 0:
         return []

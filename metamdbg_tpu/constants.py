@@ -2,7 +2,7 @@
 
 Every constant cites the reference file:line under /root/reference it mirrors
 (reference: GaetanBenoitDev/metaMDBG v1.4). These values define the *method*;
-the implementation around them is TPU-native and shares no code.
+the implementation around them is new and shares no code.
 """
 
 import numpy as np

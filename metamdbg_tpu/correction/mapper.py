@@ -16,9 +16,10 @@ Mirrors ReadMapper (src/readSelection/ReadMapper.hpp:9-1428):
   aligned-read lists are written to readAlignmentsLowDensity.bin
   ({u32 ref, u32 n, u32 query[n]}, ReadMapper.hpp:1391-1426).
 
-TPU note: the table join is the all-to-all-shaped stage (same machinery as
-the sharded count table); the per-pair banded chaining DP is the batched
-device-kernel target (fixed band, lax.scan over anchors).
+Device paths: on several devices the table join runs sharded with
+all_to_all (parallel/pair_join.py, same machinery as the sharded count
+table); the per-pair banded chaining DP runs batched on the device
+(kernels/chain_jax.py, fixed band, lax.scan over anchors).
 """
 
 import os

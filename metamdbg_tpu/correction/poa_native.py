@@ -15,6 +15,8 @@ import subprocess
 
 import numpy as np
 
+from ..utils.forkmap import native_threads
+
 log = logging.getLogger("metamdbg_tpu")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir,
@@ -147,7 +149,7 @@ def correct_reads_batch(buffers: ReadSetBuffers, work, align_lists, params,
             ctypes.c_float(CHAIN_W), ctypes.c_int64(CHAIN_MAX_DIST),
             ctypes.c_int64(CHAIN_MAX_GAP),
             _ptr(out_mins, ctypes.c_uint32), _ptr(out_offs, ctypes.c_int64),
-            ctypes.c_int64(cap), ctypes.c_int32(n_threads))
+            ctypes.c_int64(cap), ctypes.c_int32(native_threads(n_threads)))
         if rc >= 0:
             return [out_mins[out_offs[i]:out_offs[i + 1]].copy()
                     for i in range(n_work)]

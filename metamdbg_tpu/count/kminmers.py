@@ -13,9 +13,9 @@ Method semantics (reference):
   (RescueKminmerFunctor, src/graph/CreateMdbg.hpp:4562-4640).
 
 The reference hash-shards k-min-mers to disk partitions and sorts each; we
-sort the whole (N, k) u32 array at once (np.lexsort host / on-device radix
-sort later) — identical grouping, no partition files. The TPU scale-out
-shards this table by hash128 across chips with all_to_all routing
+sort the whole (N, k) u32 array at once (np.lexsort on the host, lax.sort
+on the device) — identical grouping, no partition files. On several
+devices the table is sharded by hash128 with all_to_all routing
 (parallel/count_table.py).
 """
 
@@ -114,13 +114,7 @@ def count_unique_rows(rows: np.ndarray):
     if (rows.shape[0] >= _DEVICE_COUNT_MIN_ROWS
             and not os.environ.get("METAMDBG_TPU_HOST_COUNT")):
         from ..utils import devwarm
-
-        def _device_path(r=rows.copy()):
-            from ..kernels.count_jax import count_unique_rows_device
-            return count_unique_rows_device(np.ascontiguousarray(r))
-
-        with devwarm.gate("device row counting", rows.shape[0],
-                          shadow=_device_path) as g:
+        with devwarm.gate("device row counting", rows.shape[0]) as g:
             if g.device:
                 from ..kernels.count_jax import count_unique_rows_device
                 return count_unique_rows_device(np.ascontiguousarray(rows))
@@ -254,10 +248,11 @@ def count_kminmers_mesh(mesh, reads: list, k: int, min_abundance: int = 0,
 
     The heavy count (extract windows -> hash128 -> all_to_all route by
     `hash % num_shards` -> per-shard sort + segment-count) runs on the mesh
-    (parallel/count_table.py), the TPU twin of the reference's hash-sharded
-    disk partitions (src/graph/CreateMdbg.hpp:3714-3883). The host keeps
-    only the unique-row materialization (needed for kminmerData_min.txt)
-    and the rescue pass, and joins mesh counts back by 128-bit hash.
+    (parallel/count_table.py), the device twin of the reference's
+    hash-sharded disk partitions (src/graph/CreateMdbg.hpp:3714-3883). The
+    host keeps only the unique-row materialization (needed for
+    kminmerData_min.txt) and the rescue pass, and joins mesh counts back by
+    128-bit hash.
     Byte-identical artifacts to the single-device path
     (tests/test_mesh_first_pass.py)."""
     rows, read_ids, _, offsets = batch_extract_kminmers(reads, k)

@@ -19,7 +19,7 @@ Replaces the reference's BooPHF edge index + sequential walks
   the "predecessors" list of u is successors(rc(u)).
 
 All tables are (rows, k) u32 arrays keyed by 128-bit murmur hashes — the
-layout the TPU path shards by hash across chips.
+layout the mesh path shards by hash across devices.
 """
 
 import dataclasses

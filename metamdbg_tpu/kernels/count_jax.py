@@ -1,6 +1,6 @@
 """Device k-min-mer counting: lexicographic sort + run-length grouping.
 
-TPU twin of count/kminmers.count_unique_rows — replaces the reference's
+Device twin of count/kminmers.count_unique_rows — replaces the reference's
 partitioned disk sort + run-length count (KminmerCounter,
 src/graph/CreateMdbg.hpp:3744-3851) with one device sort over the whole
 (N, k) u32 table. `jax.lax.sort(num_keys=k)` gives exactly np.lexsort's

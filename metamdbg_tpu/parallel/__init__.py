@@ -19,9 +19,9 @@ def ensure_distributed():
     """Initialize jax.distributed when METAMDBG_TPU_DISTRIBUTED is set.
 
     MUST run before anything touches the XLA backend (jax.devices,
-    device_put, the devwarm claim thread...). devwarm.start_warmup() calls
-    this first, so any pipeline that warms the device is ordered correctly;
-    idempotent and a no-op without the env var."""
+    device_put, ...). devwarm.init_backend() calls this first, so a
+    pipeline run is ordered correctly; idempotent and a no-op without the
+    env var."""
     global _DIST_INITIALIZED
     if not os.environ.get("METAMDBG_TPU_DISTRIBUTED") or _DIST_INITIALIZED:
         return
@@ -47,15 +47,10 @@ def production_mesh(axis: str = "data"):
     (virtual CPU devices under xla_force_host_platform_device_count count
     too — that is the multi-chip test rig). Multi-host runs initialize
     `jax.distributed` first when METAMDBG_TPU_DISTRIBUTED is set (the
-    coordinator address comes from the standard JAX env vars). Never blocks
-    on a pending device claim (utils/devwarm.py): single-chip pipelines
-    keep their adaptive host/device paths instead.
+    coordinator address comes from the standard JAX env vars).
     """
-    if os.environ.get("METAMDBG_TPU_HOST_ONLY"):
-        return None
-    ensure_distributed()
     from ..utils import devwarm
-    if not devwarm.device_ready():
+    if devwarm.init_backend() is None:
         return None
     import jax
     import numpy as np

@@ -1,10 +1,10 @@
 """Sharded k-min-mer count table over a device mesh.
 
-The TPU-native replacement for the reference's hash-sharded disk partitions
+The device-mesh replacement for the reference's hash-sharded disk partitions
 (KminmerCounter, src/graph/CreateMdbg.hpp:3591-3883): minimizer reads are
 data-parallel across devices; each device extracts k-windows, hashes them
 (128-bit murmur on u32 pairs), routes them to the owning shard (high hash
-word mod #shards) with `all_to_all` over the mesh (ICI), and each shard
+word mod #shards) with `all_to_all` over the mesh, and each shard
 sorts + run-length counts its slice.
 
 Losslessness: exchange capacity is NEGOTIATED — a cheap first pass counts

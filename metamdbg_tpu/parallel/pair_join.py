@@ -1,6 +1,6 @@
 """Sharded minimizer-pair table join over a device mesh.
 
-The TPU-native twin of ReadMapper's chunked pair-table join
+The device-mesh twin of ReadMapper's chunked pair-table join
 (src/readSelection/ReadMapper.hpp:632-845, re-expressed in
 correction/mapper._process_chunk): the all-vs-all mapper builds a sorted
 u64 pair table and looks every read's pairs up in it. Here both sides are

@@ -104,8 +104,8 @@ class Pipeline:
             f.write(f"{name}\t{dt:.2f}s\t{rss:.3f}GB\n")
         with open(os.path.join(self.tmp_dir, "perf.txt"), "w") as f:
             f.write(f"{rss:.3f}\n")
-        # device routing/health provenance (refreshed per stage so partial
-        # runs carry it too) — consumed by bench.py and the scale harness
+        # device routing provenance (refreshed per stage so partial runs
+        # carry it too)
         from ..utils import devwarm
         devwarm.dump_telemetry(os.path.join(self.tmp_dir, "device.json"))
         log.debug("stage %s: %.2fs, peak RSS %.3f GB", name, dt, rss)
@@ -141,10 +141,11 @@ class Pipeline:
     # -- stages -------------------------------------------------------------
     def run(self):
         t0 = time.time()
-        # claim the device in the background; stages migrate onto it as
-        # soon as it is ready (utils/devwarm.py)
+        # open the backend up front so a missing device fails the run here;
+        # each run keeps its own routing record (utils/devwarm.py)
         from ..utils import devwarm
-        devwarm.start_warmup()
+        devwarm.reset_telemetry()
+        devwarm.init_backend()
         self.mean_read_length = 0
         params = self.make_params(self.first_k, self.first_k)
         params.save(os.path.join(self.tmp_dir, "parameters.gz"))

@@ -1,8 +1,8 @@
 """ctypes binding to the native host batch sketcher (native/sketch.cpp).
 
-The host production path for minimizer selection: used while the
-asynchronous device claim is pending (utils/devwarm.py) and on
-backend-less machines. Bit-identical to the numpy golden path
+The host production path for minimizer selection: the host twin the
+calibrated gate (utils/devwarm.py) routes to, and the path of host-only
+runs. Bit-identical to the numpy golden path
 (sketch/minimizers.py, asserted in tests/test_sketch.py); the device
 kernel (kernels/sketch.py) is the large-scale path.
 """
@@ -13,6 +13,8 @@ import os
 import subprocess
 
 import numpy as np
+
+from ..utils.forkmap import native_threads
 
 log = logging.getLogger("metamdbg_tpu")
 
@@ -95,8 +97,9 @@ def row_hash_batch(rows: np.ndarray, n_threads: int | None = None):
         return None
     rows = np.ascontiguousarray(rows, np.uint32)
     n, w = rows.shape
-    if n_threads is None:
-        n_threads = 1 if n < 65536 else (os.cpu_count() or 1)
+    if n_threads is None and n < 65536:
+        n_threads = 1
+    n_threads = native_threads(n_threads)
     h1 = np.empty(n, np.uint64)
     h2 = np.empty(n, np.uint64)
     lib.row_hash_batch(
@@ -115,8 +118,7 @@ def window_hash_batch(cat: np.ndarray, starts: np.ndarray, w: int,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     cat = np.ascontiguousarray(cat, np.uint32)
     starts = np.ascontiguousarray(starts, np.int64)
     n = starts.shape[0]
@@ -138,8 +140,7 @@ def read_filters_batch(seqs, quals, w: int, step: int,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     n = len(seqs)
     soffs = np.zeros(n + 1, np.int64)
     qoffs = np.zeros(n + 1, np.int64)
@@ -210,8 +211,7 @@ def chain_mapper_batch(ref_pos, q_pos, is_rev, q_idx, offsets, band: int,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     n_groups = offsets.shape[0] - 1
     rp = np.ascontiguousarray(ref_pos, np.int64)
     qp = np.ascontiguousarray(q_pos, np.int64)
@@ -244,8 +244,7 @@ def chain_batch_native(groups, avg_dist: float, band: int, w: float,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     n = len(groups)
     offsets = np.zeros(n + 1, np.int64)
     for i, (rp, _, _, _) in enumerate(groups):
@@ -291,8 +290,7 @@ def sketch_batch_native(codes_list, bad_list, l: int, density: float,
     lib = _load()
     if lib is None:
         return None
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
+    n_threads = native_threads(n_threads)
     n = len(codes_list)
     offsets = np.zeros(n + 1, np.int64)
     for i, c in enumerate(codes_list):

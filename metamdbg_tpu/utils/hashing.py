@@ -11,7 +11,7 @@ The reference method's determinism hinges on two hash functions
 
 Both are implemented here as vectorized numpy over u64 arrays, matching the
 C++ bit-for-bit (validated in tests/test_hashing.py against an independent
-scalar model). The TPU device path (u32-pair arithmetic, no 64-bit ints)
+scalar model). The device path (u32-pair arithmetic, no 64-bit ints)
 lives in metamdbg_tpu/utils/u64pair.py and must agree exactly.
 """
 

@@ -1,11 +1,12 @@
-"""u64 arithmetic as (lo, hi) uint32 pairs for TPU.
+"""u64 arithmetic as (lo, hi) uint32 pairs for the device kernels.
 
-TPU vector units have no 64-bit integer lanes; Pallas kernels and fast XLA
-code paths therefore model u64 values as two uint32 arrays ``(lo, hi)``.
-This module provides the full set of u64 ops needed for bit-exact
-MurmurHash3 (see utils/hashing.py for the semantics being matched) plus the
-murmur hashes themselves. Everything is shape-polymorphic and works both in
-plain jnp code and inside Pallas kernel bodies.
+JAX runs with 32-bit integers unless x64 mode is enabled process-wide, and
+GPUs have no native 64-bit integer multiply either (it is emulated with
+several 32-bit instructions), so the device kernels model u64 values as two
+uint32 arrays ``(lo, hi)``. This module provides the full set of u64 ops
+needed for bit-exact MurmurHash3 (see utils/hashing.py for the semantics
+being matched) plus the murmur hashes themselves. Everything is
+shape-polymorphic plain jnp code.
 
 All functions take/return uint32 arrays; Python ints are accepted for
 constants.

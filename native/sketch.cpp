@@ -2,8 +2,8 @@
 // MurmurHash3 threshold selection over many reads, OpenMP across reads.
 //
 // This is the HOST production twin of the device sketch kernel
-// (metamdbg_tpu/kernels/sketch.py) — used while the asynchronous device
-// claim is pending (utils/devwarm.py) and on backend-less machines. It
+// (metamdbg_tpu/kernels/sketch.py) — the host side of the calibrated gate
+// (utils/devwarm.py) and the path of host-only runs. It
 // replays the reference's hot loop (KmerModel::iterate + MinimizerParser,
 // src/utils/kmer/Kmer.hpp:458-627,1339-1456) at C++ speed; outputs are
 // bit-identical to the numpy golden path (sketch/minimizers.py), asserted

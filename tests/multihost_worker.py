@@ -50,7 +50,7 @@ def main():
     from metamdbg_tpu.utils import devwarm
 
     parallel.ensure_distributed()
-    assert devwarm.device_ready(wait=True, timeout=60)
+    assert devwarm.init_backend() is not None
     mesh = parallel.production_mesh()
     assert mesh is not None, "mesh must form in a distributed run"
     n_expected = int(os.environ["METAMDBG_TPU_NUM_PROCESSES"]) * 4

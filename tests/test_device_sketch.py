@@ -74,31 +74,3 @@ def test_sharded_count_table_matches_host():
     assert distinct == uniq.shape[0]
     assert solid == int((counts > 1).sum()) and solid > 0
 
-
-def test_pallas_matches_xla():
-    """Pallas sketch kernel (interpret mode on the CPU CI mesh) vs the
-    XLA-fused production kernel: identical selection mask and identical
-    values/directions on selected positions, including bad bases and a
-    short read whose trim window differs."""
-    import jax.numpy as jnp
-
-    from metamdbg_tpu.kernels.sketch import sketch_batch
-    from metamdbg_tpu.kernels.sketch_pallas import sketch_batch_pallas
-
-    rng = np.random.default_rng(5)
-    n, L = 8, 1024
-    codes = rng.integers(0, 4, size=(n, L), dtype=np.uint8)
-    codes[rng.random((n, L)) < 0.003] = 4
-    lengths = np.full(n, L, np.int32)
-    lengths[2] = 300
-    cj, lj = jnp.asarray(codes), jnp.asarray(lengths)
-
-    a = sketch_batch(cj, lj, l=15, density=0.05)
-    b = sketch_batch_pallas(cj, lj, l=15, density=0.05, interpret=True)
-    sa = np.asarray(a["selected"])
-    assert sa.sum() > 0
-    assert np.array_equal(sa, np.asarray(b["selected"]))
-    assert np.array_equal(np.asarray(a["values"])[sa],
-                          np.asarray(b["values"])[sa])
-    assert np.array_equal(np.asarray(a["directions"])[sa],
-                          np.asarray(b["directions"])[sa])
